@@ -1,10 +1,10 @@
-// pt_native: host-side native runtime for path_tracer_tpu.
+// pt_native: host-side native runtime for path_tracer.
 //
 // The reference implements its host runtime in Rust (OFF parsing
 // src/render/load_off.rs, PPM encoding src/render/mod.rs:1031-1089, image
-// hashing mod.rs:916-926). This library provides the TPU framework's native
+// hashing mod.rs:916-926). This library provides the framework's native
 // equivalents, exposed through a C ABI consumed via ctypes
-// (path_tracer_tpu/native). Pure-Python fallbacks exist for every entry
+// (path_tracer/native). Pure-Python fallbacks exist for every entry
 // point; this is the fast path for large meshes / frames.
 //
 // Build: make -C csrc     (produces libpt_native.so)

@@ -7,11 +7,11 @@ left depends on the f32 rounding of the hit point, so the literal
 estimator's expectation is a function of the platform arithmetic. This
 script measures that: it renders estimator='shipped' vs 'literal' for each
 (scene, backend) on the CURRENT platform, stores rows in
-``out/parity_literal.json``, and regenerates the PARITY_REPORT.md section
-from all stored rows. Run it once on TPU and once with --platform cpu to
-get the cross-platform table.
+``PARITY_LITERAL.json`` (replacing earlier rows of the same platform), and
+regenerates the PARITY_REPORT.md section from all stored rows. Run it once
+on the GPU and once with --platform cpu to get the cross-platform table.
 
-Usage: JAX_COMPILATION_CACHE_DIR=.jax_cache python scripts/parity_literal.py
+Usage: python scripts/parity_literal.py
        [--platform cpu] [--scale 4] [--spp-scale 4] [--backends fast,exact]
 """
 
@@ -24,7 +24,6 @@ import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(_ROOT, ".jax_cache"))
 
 import numpy as np
 
@@ -62,14 +61,13 @@ def regen_section(rows, out_path):
     lines += [
         "",
         "RMSE >> noise floor is EXPECTED — it measures the estimator",
-        "deviation, not an implementation error. The decisive observation is",
-        "the DELTA COLUMN'S SIGN FLIP across platforms: under `t > 0` the",
+        "deviation, not an implementation error. Under `t > 0` the",
         "phantom-re-hit probability is a function of f32 rounding, so the",
-        "literal estimator has no platform-independent expectation — the same",
-        "semantics reads tens of percent BRIGHTER on CPU arithmetic and",
-        "DARKER on TPU arithmetic. The reference's own output is one sample",
-        "of this rounding chaos (its Rust scalar arithmetic ~ our CPU 'exact'",
-        "row). The shipped `t > EPS_TRI_T` + prev-exclusion estimator is the",
+        "literal estimator has no platform-independent expectation: compare",
+        "the delta column across platforms and backends. The reference's own",
+        "output is one sample of this rounding chaos (its Rust scalar",
+        "arithmetic ~ our CPU 'exact' row). The shipped `t > EPS_TRI_T` +",
+        "prev-exclusion estimator is the",
         "principled, rounding-robust target; image-level parity with the",
         "literal reference is only definable up to this chaos. Users needing",
         "bit-faithful reference behavior can opt in via",
@@ -98,14 +96,17 @@ def main():
     args = p.parse_args()
 
     os.chdir(_ROOT)
+    from path_tracer.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
     if args.platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
 
-    import path_tracer_tpu as pt
-    from path_tracer_tpu.ops.tonemap import quantize_np
-    from path_tracer_tpu.utils.config import RenderConfig, Resolution
+    import path_tracer as pt
+    from path_tracer.ops.tonemap import quantize_np
+    from path_tracer.utils.config import RenderConfig, Resolution
 
     platform = jax.default_backend()
     rows = []

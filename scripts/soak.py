@@ -2,7 +2,7 @@
 
 Asserts what production serving needs: flat steady-state timing (no
 per-render slowdown) and bounded host memory (donated device buffers —
-no per-render leak). Run on the chip:
+no per-render leak). Run on the GPU:
 
     python scripts/soak.py [n_renders]
 """
@@ -13,15 +13,17 @@ import statistics
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 os.chdir(_ROOT)
 
 
 def main(n: int = 30) -> int:
-    import path_tracer_tpu as pt
-    from path_tracer_tpu.utils.config import RenderConfig, Resolution
+    from path_tracer.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
+    import path_tracer as pt
+    from path_tracer.utils.config import RenderConfig, Resolution
 
     scene = pt.load_scene("cornell", "scenes")
     cfg = RenderConfig(samples_per_pixel=512, resolution=Resolution(768, 1024))

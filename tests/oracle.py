@@ -1,7 +1,7 @@
 """Pure-Python scalar oracle: a literal re-statement of the reference's
 tracer semantics (``/root/reference/src/render/mod.rs:412-857``), written
 fresh in numpy scalars. Deliberately UN-vectorized and recursive — it exists
-to check that the TPU wavefront transform preserves the estimator, and that
+to check that the wavefront transform preserves the estimator, and that
 the packed-SoA intersection reproduces scan order, epsilons and tie-breaks.
 
 The RNG is injected (a ``rand() -> float`` callable), so tests can use the
@@ -168,7 +168,7 @@ def make_rand(seed: int):
 
 def make_mock_rand():
     """The reference MOCK_RANDOM fixture: fixed 9-value cycle (mod.rs:31-55)."""
-    from path_tracer_tpu.ops.rng import MOCK_RANDOMS
+    from path_tracer.ops.rng import MOCK_RANDOMS
 
     state = {"i": 0}
 

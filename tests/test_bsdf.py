@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from path_tracer_tpu.ops.bsdf import (
+from path_tracer.ops.bsdf import (
     reflect,
     sample_bsdf,
     sample_diffuse,
@@ -92,7 +92,7 @@ def test_sample_bsdf_selects_by_rtype():
 def test_camera_view_projection_roundtrip():
     """Unprojecting the projection of a world point recovers it (the basis
     of viewport click-picking, viewport_tab.rs:226-249)."""
-    from path_tracer_tpu.models.camera import Camera
+    from path_tracer.models.camera import Camera
 
     cam = Camera.looking([0.0, -0.2, 7.8], [0.0, -0.06, -1.0])
     vp = cam.view_projection(1.5).astype(np.float64)

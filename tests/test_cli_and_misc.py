@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-import path_tracer_tpu as pt
-from path_tracer_tpu.cli import build_parser, resolve_scene
-from path_tracer_tpu.utils.config import RenderConfig, Resolution
-from path_tracer_tpu.utils.profiling import RenderStats, format_eta
+import path_tracer as pt
+from path_tracer.cli import build_parser, resolve_scene
+from path_tracer.utils.config import RenderConfig, Resolution
+from path_tracer.utils.profiling import RenderStats, format_eta
 
 
 def test_cli_defaults_and_positionals():
@@ -61,7 +61,7 @@ def test_remainder_pass(all_scenes):
 
 
 def test_distributed_single_host_helpers(all_scenes):
-    from path_tracer_tpu.parallel import distributed
+    from path_tracer.parallel import distributed
 
     scene = all_scenes["cornell"]
     d1 = distributed.scene_digest(scene)

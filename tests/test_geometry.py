@@ -4,14 +4,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from path_tracer_tpu.models.geometry import (
+from path_tracer.models.geometry import (
     Mesh,
     bounding_box_to_triangles,
     buggy_bounding_sphere,
     single_quad_mesh,
     sphere_to_triangles,
 )
-from path_tracer_tpu.ops.tonemap import to_int_with_gamma_correction, quantize_np
+from path_tracer.ops.tonemap import to_int_with_gamma_correction, quantize_np
 from tests import oracle
 
 

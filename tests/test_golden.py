@@ -11,8 +11,8 @@ import os
 import numpy as np
 import pytest
 
-import path_tracer_tpu as pt
-from path_tracer_tpu.utils.config import RenderConfig, Resolution
+import path_tracer as pt
+from path_tracer.utils.config import RenderConfig, Resolution
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import path_tracer_tpu as pt
-from path_tracer_tpu.ops.intersect import intersect_scene
+import path_tracer as pt
+from path_tracer.ops.intersect import intersect_scene
 
 
 def _random_rays(scene, n, seed=0):
@@ -101,8 +101,8 @@ def test_mesh_pretest_gates_triangles(all_scenes):
 def test_reverse_order_tie_break():
     """Two coincident spheres: the higher object index must win (reference
     scans objects in reverse keeping strictly-closer hits)."""
-    from path_tracer_tpu.models.material import Material, ReflectType
-    from path_tracer_tpu.models.scene import SceneDescriptor, SceneObject
+    from path_tracer.models.material import Material, ReflectType
+    from path_tracer.models.scene import SceneDescriptor, SceneObject
 
     mat = Material(np.ones(3), np.zeros(3), ReflectType.DIFFUSE)
     scene = SceneDescriptor(
@@ -123,7 +123,7 @@ def test_reverse_order_tie_break():
 def test_intersect_bounds_uses_aabb_for_meshes(all_scenes):
     """intersect_bounds parity (mod.rs:282-290): a ray that misses a mesh's
     triangles but crosses its AABB must still report the AABB hit."""
-    from path_tracer_tpu.ops.host_intersect import (
+    from path_tracer.ops.host_intersect import (
         intersect_bounds_packed,
         intersect_packed,
         pack_scene_bounds,
@@ -134,7 +134,7 @@ def test_intersect_bounds_uses_aabb_for_meshes(all_scenes):
     bbox_tris, bbox_obj = pack_scene_bounds(scene)
     obj0 = scene.objects[0]  # the mctri mesh
     # aim at an AABB corner region likely devoid of triangles
-    from path_tracer_tpu.models.geometry import mesh_bounds
+    from path_tracer.models.geometry import mesh_bounds
 
     mn, mx = mesh_bounds(obj0.mesh.triangles)
     corner = mx + obj0.position
@@ -145,7 +145,7 @@ def test_intersect_bounds_uses_aabb_for_meshes(all_scenes):
     bounds_hit = intersect_bounds_packed(packed, bbox_tris, bbox_obj, o, d)
     assert bounds_hit is not None and bounds_hit[1] == 0, bounds_hit
     # jnp twin agrees
-    from path_tracer_tpu.ops.intersect import intersect_bounds
+    from path_tracer.ops.intersect import intersect_bounds
 
     bufs = {k: jnp.asarray(v) for k, v in packed.buffers().items()}
     bb = {

@@ -6,7 +6,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from path_tracer_tpu import native
+from path_tracer import native
 
 
 def _built():
@@ -19,7 +19,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_off_matches_python(repo_root):
-    from path_tracer_tpu.models.off import parse_off
+    from path_tracer.models.off import parse_off
 
     path = os.path.join(repo_root, "meshes", "mctri.off")
     tris_native = native.native_parse_off(path, 0.16)
@@ -30,14 +30,14 @@ def test_off_matches_python(repo_root):
 
 
 def test_off_rejects_pentagons(repo_root):
-    from path_tracer_tpu.models.off import OffParseError
+    from path_tracer.models.off import OffParseError
 
     with pytest.raises(OffParseError):
         native.native_parse_off(os.path.join(repo_root, "meshes", "hdodec.off"), 1.0)
 
 
 def test_ppm_body_matches_python():
-    from path_tracer_tpu.ops.tonemap import quantize_np
+    from path_tracer.ops.tonemap import quantize_np
 
     g = np.random.default_rng(0)
     px = g.uniform(-0.1, 1.1, (257, 3)).astype(np.float32)
@@ -48,7 +48,7 @@ def test_ppm_body_matches_python():
 
 
 def test_hash_matches_reference_fnv():
-    from path_tracer_tpu.utils.hashing import fnv1a
+    from path_tracer.utils.hashing import fnv1a
 
     px = np.arange(30, dtype=np.float32) / 7.0
     assert native.native_hash_image(px) == fnv1a(px.tobytes())

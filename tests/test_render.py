@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-import path_tracer_tpu as pt
-from path_tracer_tpu.render.image import Image, read_ppm, write_ppm
-from path_tracer_tpu.utils.config import RenderConfig, Resolution
+import path_tracer as pt
+from path_tracer.render.image import Image, read_ppm, write_ppm
+from path_tracer.utils.config import RenderConfig, Resolution
 
 
 def _cfg(res=24, spp=8, **kw):
@@ -35,7 +35,7 @@ def test_plain_render_takes_packed_fetch_path(all_scenes, monkeypatch):
     None`, which no jax array satisfies (plain arrays carry a
     SingleDeviceSharding) — so it had been dead since r3, costing two
     serialized device fetches (~105 vs ~40 ms) on every small render."""
-    from path_tracer_tpu.parallel import distributed
+    from path_tracer.parallel import distributed
 
     def boom(a):
         raise AssertionError("plain render fell into the sharded "
@@ -59,11 +59,33 @@ def test_render_deterministic_same_seed(all_scenes):
     assert not np.array_equal(r1.image.pixels, r3.image.pixels)
 
 
+def _backend_ctx(backend):
+    """The kernel backend runs here only in the Pallas interpreter."""
+    import contextlib
+
+    from path_tracer.ops.pallas import megakernel
+
+    if backend == "pallas":
+        return megakernel.interpret_mode()
+    return contextlib.nullcontext()
+
+
 def test_progress_and_cancel(all_scenes):
+    """Progress updates and cooperative cancel at pass boundaries."""
+    _progress_and_cancel(all_scenes, "auto")
+
+
+def test_progress_and_cancel_kernel(all_scenes):
+    """The same on the kernel backend."""
+    with _backend_ctx("pallas"):
+        _progress_and_cancel(all_scenes, "pallas")
+
+
+def _progress_and_cancel(all_scenes, backend):
     updates = []
     done = pt.render(
         all_scenes["two-spheres"],
-        _cfg(16, 16).with_(samples_per_pass=4),
+        _cfg(16, 16, backend=backend).with_(samples_per_pass=4),
         out_dir=None,
         progress=lambda u: updates.append(u),
         progress_interval=0.0,
@@ -82,7 +104,7 @@ def test_progress_and_cancel(all_scenes):
 
     done = pt.render(
         all_scenes["two-spheres"],
-        _cfg(16, 16).with_(samples_per_pass=4),
+        _cfg(16, 16, backend=backend).with_(samples_per_pass=4),
         out_dir=None,
         cancel=cancel,
         verbose=False,
@@ -92,8 +114,20 @@ def test_progress_and_cancel(all_scenes):
 
 
 def test_checkpoint_resume_bit_exact(all_scenes, tmp_path):
+    """A render interrupted after two passes and resumed from its
+    pass-boundary checkpoint equals the uninterrupted render bit for bit."""
+    _checkpoint_resume(all_scenes, tmp_path, "auto")
+
+
+def test_checkpoint_resume_bit_exact_kernel(all_scenes, tmp_path):
+    """The same on the kernel backend."""
+    with _backend_ctx("pallas"):
+        _checkpoint_resume(all_scenes, tmp_path, "pallas")
+
+
+def _checkpoint_resume(all_scenes, tmp_path, backend):
     ck = str(tmp_path / "ck.npz")
-    cfg = _cfg(16, 16, seed=11).with_(samples_per_pass=4)
+    cfg = _cfg(16, 16, seed=11, backend=backend).with_(samples_per_pass=4)
 
     full = pt.render(all_scenes["two-spheres"], cfg, out_dir=None, verbose=False)
 
@@ -148,16 +182,45 @@ def test_ppm_roundtrip(tmp_path):
     path = write_ppm(img, "t", 5, 1.25, out_dir=str(tmp_path), make_symlink=False)
     vals, w, h = read_ppm(path)
     assert (w, h) == (18, 12)
-    from path_tracer_tpu.ops.tonemap import quantize_np
+    from path_tracer.ops.tonemap import quantize_np
 
     np.testing.assert_array_equal(vals, quantize_np(pixels)[::-1])
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 5), (96, 144)])
+def test_png_roundtrip(tmp_path, shape):
+    """The standard-library PNG writer round-trips bit-exactly, through our
+    own decoder and, where installed, through PIL."""
+    from path_tracer.render.image import decode_png, encode_png, write_png
+
+    g = np.random.default_rng(shape[0])
+    rgb = g.integers(0, 256, shape + (3,), dtype=np.uint8)
+    data = encode_png(rgb)
+    np.testing.assert_array_equal(decode_png(data), rgb)
+    try:
+        import io
+
+        from PIL import Image as PILImage
+    except ImportError:
+        pass
+    else:
+        np.testing.assert_array_equal(
+            np.asarray(PILImage.open(io.BytesIO(data))), rgb)
+    # write_png: display orientation + gamma, as the viewer serves it
+    h, w = shape
+    img = Image.new(g.uniform(size=(h * w, 3)), Resolution(h, w))
+    path = write_png(img, str(tmp_path / "x.png"))
+    with open(path, "rb") as f:
+        back = decode_png(f.read())
+    want = (np.power(img.to_grid(), np.float32(1 / 2.2)) * 255 + 0.5)
+    np.testing.assert_array_equal(back, want.astype(np.uint8))
 
 
 def test_ppm_body_digit_boundaries():
     """The vectorized ASCII encoder is byte-identical to a naive %d join
     across digit-count boundaries (1/2/3-digit values) and empty input."""
-    from path_tracer_tpu.ops.tonemap import quantize_np
-    from path_tracer_tpu.render.image import ppm_body
+    from path_tracer.ops.tonemap import quantize_np
+    from path_tracer.render.image import ppm_body
 
     g = np.random.default_rng(7)
     cases = [

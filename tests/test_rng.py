@@ -3,7 +3,7 @@
 import numpy as np
 import jax
 
-from path_tracer_tpu.ops import rng
+from path_tracer.ops import rng
 
 
 def test_bounce_uniforms_deterministic():

@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-import path_tracer_tpu as pt
-from path_tracer_tpu.models.off import OffParseError, load_off, parse_off
-from path_tracer_tpu.models.scene import SceneDescriptor, dumps_scene_json
+import path_tracer as pt
+from path_tracer.models.off import OffParseError, load_off, parse_off
+from path_tracer.models.scene import SceneDescriptor, dumps_scene_json
 
 
 def _semantic_diff(a, b, path=""):
@@ -109,7 +109,7 @@ def test_off_comments_and_blanks():
 
 
 def test_float_formatting_shortest_f32():
-    from path_tracer_tpu.models.scene import _fmt_f32
+    from path_tracer.models.scene import _fmt_f32
 
     assert _fmt_f32(np.float32(0.98) * 15) == "14.700001"
     assert _fmt_f32(2.0) == "2.0"

@@ -9,10 +9,19 @@ import urllib.request
 import numpy as np
 import pytest
 
-import path_tracer_tpu as pt
-from path_tracer_tpu.viewer.controls import SceneNavigator, axis_angle_matrix
-from path_tracer_tpu.viewer.debug import test_scene_ray as scene_ray_probe
-from path_tracer_tpu.viewer.raster import render_preview, grid_triangles
+import path_tracer as pt
+from path_tracer.viewer.controls import SceneNavigator, axis_angle_matrix
+from path_tracer.viewer.debug import test_scene_ray as scene_ray_probe
+from path_tracer.viewer.raster import render_preview, grid_triangles
+
+
+@pytest.fixture()
+def cornell(all_scenes):
+    """A private copy: navigation mutates the camera, and the session-wide
+    scenes must stay as loaded for the tests that render them."""
+    import copy
+
+    return copy.deepcopy(all_scenes["cornell"])
 
 
 def test_axis_angle_matrix():
@@ -21,8 +30,8 @@ def test_axis_angle_matrix():
     np.testing.assert_allclose(R @ np.array([0, 1, 0]), [0, 1, 0], atol=1e-6)
 
 
-def test_orbit_preserves_pivot_distance(all_scenes):
-    nav = SceneNavigator(all_scenes["cornell"])
+def test_orbit_preserves_pivot_distance(cornell):
+    nav = SceneNavigator(cornell)
     cam = nav.scene.camera
     nav.begin_orbit()
     pivot = nav._orbit_point.copy()
@@ -37,8 +46,8 @@ def test_orbit_preserves_pivot_distance(all_scenes):
     np.testing.assert_allclose(cam.direction, to_pivot, atol=1e-4)
 
 
-def test_zoom_moves_along_direction(all_scenes):
-    nav = SceneNavigator(all_scenes["cornell"])
+def test_zoom_moves_along_direction(cornell):
+    nav = SceneNavigator(cornell)
     cam = nav.scene.camera
     p0, d0 = cam.position.copy(), cam.direction.copy()
     nav.zoom(100.0)
@@ -49,8 +58,8 @@ def test_zoom_moves_along_direction(all_scenes):
     np.testing.assert_array_equal(cam.direction, d0)  # direction unchanged
 
 
-def test_pan_is_perpendicular(all_scenes):
-    nav = SceneNavigator(all_scenes["cornell"])
+def test_pan_is_perpendicular(cornell):
+    nav = SceneNavigator(cornell)
     cam = nav.scene.camera
     p0 = cam.position.copy()
     nav.pan(50.0, 30.0)
@@ -58,8 +67,8 @@ def test_pan_is_perpendicular(all_scenes):
     assert abs(np.dot(delta, cam.direction)) < 1e-5 * np.linalg.norm(delta)
 
 
-def test_look_around_keeps_position(all_scenes):
-    nav = SceneNavigator(all_scenes["cornell"])
+def test_look_around_keeps_position(cornell):
+    nav = SceneNavigator(cornell)
     cam = nav.scene.camera
     p0, d0 = cam.position.copy(), cam.direction.copy()
     nav.look_around(120.0, 60.0, viewport_height=400.0)
@@ -68,8 +77,8 @@ def test_look_around_keeps_position(all_scenes):
     np.testing.assert_allclose(np.linalg.norm(cam.direction), 1.0, rtol=1e-5)
 
 
-def test_pick_center_of_cornell(all_scenes):
-    nav = SceneNavigator(all_scenes["cornell"])
+def test_pick_center_of_cornell(cornell):
+    nav = SceneNavigator(cornell)
     # center of view: inside the box, should select *something*
     obj = nav.pick_object(0.5, 0.5, 1.5)
     assert obj is not None and 0 <= obj < 11
@@ -108,7 +117,7 @@ def test_raster_preview(all_scenes):
 
 
 def test_grid_spacing_log_scale():
-    from path_tracer_tpu.models.camera import Camera
+    from path_tracer.models.camera import Camera
 
     near = grid_triangles(Camera.looking([0, 0, 4], [0, 0, -1]))[0]
     far = grid_triangles(Camera.looking([0, 0, 400], [0, 0, -1]))[0]
@@ -120,10 +129,10 @@ def test_progressive_u8_transport(all_scenes):
     uint8 fetch) is the same quantizer as the PPM writer: exact vs the
     f32 formula on the renderer's own accumulator, within 1 count of the
     f64 host quantizer (f32-pow last-ulp rounding, tonemap.quantize_np)."""
-    from path_tracer_tpu.ops import tonemap
-    from path_tracer_tpu.render import integrator
-    from path_tracer_tpu.utils.config import Resolution
-    from path_tracer_tpu.viewer.progressive import ProgressiveRenderer
+    from path_tracer.ops import tonemap
+    from path_tracer.render import integrator
+    from path_tracer.utils.config import Resolution
+    from path_tracer.viewer.progressive import ProgressiveRenderer
 
     r = ProgressiveRenderer(all_scenes["two-spheres"], Resolution.from_height(24))
     frame = r.step_u8()
@@ -145,21 +154,19 @@ def test_preview_png_orientation(repo_root):
     the same double flip as Image.to_grid (row 0 = PPM row 0). PNG is
     lossless, so the decode must be bit-exact against the renderer's own
     accumulator."""
-    import io
     import os
 
-    from PIL import Image as PILImage
-
-    from path_tracer_tpu.ops import tonemap
-    from path_tracer_tpu.render import integrator
+    from path_tracer.ops import tonemap
+    from path_tracer.render.image import decode_png
+    from path_tracer.render import integrator
 
     os.chdir(repo_root)
-    from path_tracer_tpu.viewer.app import ViewerState
+    from path_tracer.viewer.app import ViewerState
 
     state = ViewerState(preview_res=24)
     state.select_scene("two-spheres")
     png, _ = state.preview_frame()
-    arr = np.asarray(PILImage.open(io.BytesIO(png)))
+    arr = decode_png(png)
     r = state.preview
     h, w = r.resolution.height, r.resolution.width
     exact = np.asarray(
@@ -177,7 +184,7 @@ def test_http_app_endpoints(repo_root):
     os.chdir(repo_root)
     from http.server import ThreadingHTTPServer
 
-    from path_tracer_tpu.viewer.app import ViewerState, make_handler
+    from path_tracer.viewer.app import ViewerState, make_handler
 
     state = ViewerState(preview_res=32)
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
@@ -195,7 +202,7 @@ def test_http_app_endpoints(repo_root):
         return json.loads(urllib.request.urlopen(req, timeout=120).read())
 
     try:
-        assert b"path_tracer_tpu" in get("/")
+        assert b"path_tracer" in get("/")
         s = json.loads(get("/state"))
         assert s["render_state"] == "not_rendering"
         assert get("/preview.png")[:4] == b"\x89PNG"
